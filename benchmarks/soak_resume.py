@@ -1,9 +1,10 @@
-"""Long-sequence checkpoint/resume soak (VERDICT r3 missing #2).
+"""Long-sequence checkpoint/resume soak.
 
-The reference's missing long benchmark clips are >=2875 frames
+The reference's long benchmark clips are >=2875 frames
 (.MISSING_LARGE_BLOBS, DenseOF.py:15 bookmark); this soak rebuilds that
-scale by looping the four committed corpus clips into ONE ~3300-frame
-1080p mp4, then:
+scale by looping a 300-frame seeded 1080p clip
+(hackathonopticalflow_tpu/io/synthetic.py) into ONE ~3300-frame .npy
+frame stack, then:
 
 1. reference pass — pathfinder run_batched over the whole clip,
    uninterrupted, recording every frame's danger count;
@@ -16,9 +17,11 @@ scale by looping the four committed corpus clips into ONE ~3300-frame
    agree) and the reconstructed stream is asserted IDENTICAL to the
    uninterrupted pass.
 
-Run on the TPU (one process at a time — the parent itself never imports
-jax). Usage: python benchmarks/soak_resume.py [--frames 3300]
-[--kill-every 30] [--cpu].
+Workers run one at a time (the parent itself never imports jax), so the
+GPU holds one JAX process at any moment. Usage:
+python benchmarks/soak_resume.py [--frames 3300] [--kill-every 30]
+[--cpu] [--workdir DIR]  (DIR defaults to soak_resume/ under the system
+temporary directory; the 1080p clip there takes ~7 GB).
 
 Reference: pathfinder_viewer.py:15,240 (the state-losing seek this
 replaces), SURVEY.md §5.4.
@@ -27,59 +30,46 @@ replaces), SURVEY.md §5.4.
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-VIDEO_DIR = "/root/reference/videos"
-CLIP = "/tmp/soak_long.mp4"
+LOOP = 300  # frames of seeded clip repeated to the requested length
 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def build_clip(n_frames: int) -> int:
-    """Loop the corpus into one long 1080p clip (cached)."""
-    import cv2
+def build_clip(path: str, n_frames: int) -> int:
+    """Loop a seeded 1080p clip into one long .npy frame stack (cached)."""
+    import numpy as np
 
-    if os.path.exists(CLIP):
-        cap = cv2.VideoCapture(CLIP)
-        have = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-        cap.release()
+    if os.path.exists(path):
+        have = np.load(path, mmap_mode="r").shape[0]
         if have >= n_frames:
             log(f"soak clip cached: {have} frames")
             return have
-    srcs = sorted(glob.glob(os.path.join(VIDEO_DIR, "*.mp4")))
-    assert srcs, "corpus missing"
-    vw = cv2.VideoWriter(
-        CLIP, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (1920, 1080)
-    )
-    assert vw.isOpened()
-    written = 0
+    sys.path.insert(0, REPO)
+    from hackathonopticalflow_tpu.io.synthetic import seeded_clip
+
     t0 = time.time()
-    while written < n_frames:
-        for s in srcs:
-            cap = cv2.VideoCapture(s)
-            while written < n_frames:
-                ok, f = cap.read()
-                if not ok:
-                    break
-                if f.shape[:2] != (1080, 1920):
-                    f = cv2.resize(f, (1920, 1080))
-                vw.write(f)
-                written += 1
-            cap.release()
-            if written >= n_frames:
-                break
-    vw.release()
-    log(f"built soak clip: {written} frames in {time.time() - t0:.0f}s")
-    return written
+    loop = seeded_clip(min(LOOP, n_frames), 1080, 1920, seed=0)
+    out = np.lib.format.open_memmap(
+        path, mode="w+", dtype=np.uint8, shape=(n_frames, 1080, 1920)
+    )
+    for start in range(0, n_frames, len(loop)):
+        stop = min(start + len(loop), n_frames)
+        out[start:stop] = loop[: stop - start]
+    out.flush()
+    del out
+    log(f"built soak clip: {n_frames} frames in {time.time() - t0:.0f}s")
+    return n_frames
 
 
 def segment(args) -> None:
@@ -96,16 +86,15 @@ def segment(args) -> None:
     from hackathonopticalflow_tpu.core.config import LKParams
 
     cfg = PathfinderConfig(
-        video=CLIP,
+        video=os.path.join(args.workdir, "soak_long.npy"),
         max_frames=args.frames - 1,
         checkpoint_path=args.checkpoint if args.checkpoint else None,
         checkpoint_every=96,
-        lk=LKParams(grid_step=30, use_pallas=True, compute_err=False),
+        lk=LKParams(compute_err=False),
     )
     def on_chunk(first, danger):
         # STREAM chunk outputs: a SIGKILLed segment has already
-        # exported everything it consumed (end-of-run-only logging left
-        # killed segments' work unrecorded — measured gap, round 4)
+        # exported everything it consumed
         with open(args.out, "a") as f:
             f.write(json.dumps({"first": int(first), "danger": danger}) + "\n")
             f.flush()
@@ -145,34 +134,37 @@ def main() -> int:
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--segment", action="store_true")
     ap.add_argument("--checkpoint", default="")
-    ap.add_argument("--out", default="/tmp/soak_segments.jsonl")
+    ap.add_argument("--workdir",
+                    default=os.path.join(tempfile.gettempdir(), "soak_resume"))
+    ap.add_argument("--out", default="")
     ap.add_argument("--skip-ref", action="store_true",
-                    help="reuse an existing /tmp/soak_ref.jsonl")
+                    help="reuse an existing soak_ref.jsonl in --workdir")
     args = ap.parse_args()
     if args.segment:
         segment(args)
         return 0
 
-    import cv2  # noqa: F401  (decode backend for build_clip)
-
-    have = build_clip(args.frames)
+    os.makedirs(args.workdir, exist_ok=True)
+    have = build_clip(os.path.join(args.workdir, "soak_long.npy"), args.frames)
     args.frames = min(args.frames, have)
     n_pairs = args.frames - 1
 
     base_cmd = [sys.executable, os.path.abspath(__file__), "--segment",
-                "--frames", str(args.frames)]
+                "--frames", str(args.frames), "--workdir", args.workdir]
     if args.cpu:
         base_cmd.append("--cpu")
 
     # 1. uninterrupted reference pass
-    ref_out = "/tmp/soak_ref.jsonl"
+    ref_out = os.path.join(args.workdir, "soak_ref.jsonl")
+    seg_out = os.path.join(args.workdir, "soak_segments.jsonl")
+    ckpt = os.path.join(args.workdir, "soak.ckpt.npz")
     skip = args.skip_ref and os.path.exists(ref_out)
     # with --skip-ref, accumulated soak segments + the checkpoint are
     # kept as well (the harness itself may be restarted; overlay()
     # handles overlaps) — a fresh run wipes everything
     for p in (
         [] if skip
-        else [ref_out, "/tmp/soak_segments.jsonl", "/tmp/soak.ckpt.npz"]
+        else [ref_out, seg_out, ckpt]
     ):
         if os.path.exists(p):
             os.unlink(p)
@@ -186,13 +178,12 @@ def main() -> int:
 
     # 2. soak pass: SIGKILL the worker until it survives to the end
     log(f"=== soak pass (SIGKILL every ~{args.kill_every}s) ===")
-    seg_out = "/tmp/soak_segments.jsonl"
     kills = 0
     t0 = time.time()
     while True:
         proc = subprocess.Popen(
             base_cmd
-            + ["--out", seg_out, "--checkpoint", "/tmp/soak.ckpt.npz"],
+            + ["--out", seg_out, "--checkpoint", ckpt],
             cwd=REPO,
         )
         try:

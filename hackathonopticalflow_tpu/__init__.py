@@ -1,4 +1,4 @@
-"""hackathonopticalflow_tpu — a TPU-native optical-flow / visual-navigation engine.
+"""hackathonopticalflow_tpu — an optical-flow / visual-navigation engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 FPV-drone pathfinder (spirinis/HackathonOpticalFlow): pyramidal Lucas-Kanade
@@ -12,7 +12,7 @@ distributed robust statistics) over `jax.sharding` meshes.
 Subpackages
 -----------
 core      pytree configs, measurement grids, image conventions
-ops       TPU kernels (pyramids, derivatives, LK, Farneback, features, stats)
+ops       device ops (pyramids, derivatives, LK, Farneback, features, stats)
 flow      user-facing flow ops (lk_grid_flow, farneback_flow, track_features)
 nav       navigation layer (radial normalize, robust filter, danger, FOE, pose, BA)
 parallel  device meshes, stream DP, spatial tiling + halo exchange, dist. stats

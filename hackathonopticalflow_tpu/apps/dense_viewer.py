@@ -1,4 +1,4 @@
-"""Dense-flow viewer — TPU-native re-design of DenseOF.py:443-672.
+"""Dense-flow viewer — a re-design of DenseOF.py:443-672.
 
 Per frame: Farneback dense flow and/or grid LK on device; host-side layer
 compositing with the prototype's display modes (gray/RGB/R/G/B/HSV/H/S/V
@@ -21,6 +21,7 @@ from ..core.grid import measurement_grid
 from ..flow.dense import farneback_flow
 from ..flow.lk_grid import lk_grid_flow
 from ..io.video import VideoReader
+from ..utils.compile_cache import enable_compile_cache
 from ..io import native_lib
 from ..ops.image import threshold_binary
 from ..viz.draw import add_layers, put_text, polylines
@@ -216,7 +217,7 @@ class DenseViewerApp:
 def main(argv=None):
     import argparse
 
-    p = argparse.ArgumentParser(description="TPU-native dense-flow viewer")
+    p = argparse.ArgumentParser(description="dense-flow viewer")
     p.add_argument("video")
     p.add_argument("--out", default=None)
     p.add_argument("--max-frames", type=int, default=None)
@@ -225,6 +226,7 @@ def main(argv=None):
     p.add_argument("--contours", action="store_true")
     p.add_argument("--interactive", action="store_true")
     args = p.parse_args(argv)
+    enable_compile_cache()
     cfg = DenseViewerConfig(
         video=args.video,
         max_frames=args.max_frames,

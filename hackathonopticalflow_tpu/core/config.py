@@ -27,14 +27,14 @@ import dataclasses
 class LKParams:
     """Pyramidal Lucas-Kanade parameters (cv2.calcOpticalFlowPyrLK parity).
 
-    slab_margin: None -> exact per-iteration window extraction (OpenCV
-    parity; golden-test path). An int M -> the TPU fast path: one
-    (win+2M+1)^2 slab is extracted per point per level and the iteration
-    windows are selected from it with static-slice masked adds (no
-    per-iteration gathers). Points whose intra-level displacement exceeds
-    M px clamp to the slab edge — in practice only points already beyond
-    LK's trackable range (window/2 per level), which the reference's own
-    filters discard."""
+    slab_margin: None -> exact per-iteration window sampling (OpenCV
+    parity, unbounded displacement; on CUDA the per-level loop runs as
+    the Triton kernel in ops/lk_triton.py). An int M -> one
+    (win+2M+2)^2 slab is extracted per point per level and the iteration
+    windows are selected from it with masked static slices (plain XLA).
+    Points whose intra-level displacement exceeds M px clamp to the slab
+    edge — in practice only points already beyond LK's trackable range
+    (window/2 per level), which the reference's own filters discard."""
 
     win_size: tuple[int, int] = (45, 45)  # (w, h)
     max_level: int = 2
@@ -42,136 +42,18 @@ class LKParams:
     eps: float = 0.03
     min_eig_threshold: float = 1e-4
     slab_margin: int | None = None
-    #: run the iteration loop as the Pallas VMEM kernel (ops/lk_pallas.py);
-    #: implies a slab margin (slab_margin or 8). Interpreted off-TPU.
-    use_pallas: bool = False
-    #: arbitrary-point path: route the iteration through the
-    #: points-in-lanes kernel (ops/lk_pallas3.py, init-centered slabs ==
-    #: crops — the round-5 rescue geometry) instead of the per-point v1
-    #: kernel. The v1 kernel's cost is linear in table capacity with a
-    #: big constant (block 32, serialized grid steps): the round-5
-    #: scaling table read 344 fps at 64 tracks but 18 fps at 2048, vs
-    #: the lanes kernel carrying 2304 static points at ~88 fps. Lanes
-    #: wins from ~128 tracks up (measured round 5, BASELINE.md).
-    points_lanes: bool = False
-    #: points per Pallas grid step. Grid steps are sequential on a core,
-    #: so larger blocks amortize the iteration loop's dependency-chain
-    #: latency across more points (VMEM-bounded: block*(win+2M+3)^2 f32).
-    pallas_block: int = 32
-    #: measurement-grid step: declares that the tracked points are the
-    #: STATIC measurement grid of the frame (core/grid.measurement_grid),
-    #: enabling the grid-anchored static-extraction kernel
-    #: (ops/lk_pallas2.py) — templates and search slabs are carved with
-    #: static strided slices instead of per-point dynamic slices. The
-    #: caller MUST pass exactly measurement_grid(h, w, grid_step) as pts.
-    grid_step: int | None = None
-    #: static-grid path: within-level drift budget around the coarse-level
-    #: init (px at the level's scale — on violent-turn clips the coarse
-    #: init can be ~10 px off, so this matches the v1 kernel's 16 px
-    #: budget); the slab margins (41 px horizontal, 36 px vertical per
-    #: level) bound the TOTAL flow instead — beyond margin-iter_margin
-    #: (25/24 px per level scale) a point freezes at its coarse estimate.
-    iter_margin: int = 12
-    #: static-grid path: vertical slab margin (rows are the kernel's
-    #: phase-A cost axis). Points with |flow_y| beyond
-    #: slab_margin_y - iter_margin per level scale freeze at their coarse
-    #: estimate — and are then recovered by the level-0 init-centered
-    #: rescue (whose basin rescue_margin covers the coarser estimate's
-    #: error). Do NOT enlarge: the lanes kernel sits ~0.3 MB under the
-    #: 16 MB scoped-VMEM limit at these margins (measured round 5:
-    #: (48, 57) margins put the kernel at 18.92 MB — compile OOM).
-    slab_margin_y: int = 36
-    #: static-grid path: horizontal slab margin. 41 = the v2 kernel's
-    #: (128-win-1)//2 layout constraint; for the lanes kernel it is a
-    #: free dial in principle (slab width is a sublane dim; keep
-    #: margin_x = 1 mod 4 so width stays 8-aligned) but VMEM-bound in
-    #: practice — see slab_margin_y.
-    slab_margin_x: int = 41
-    #: static-grid path: drift budget at the TOP pyramid level, where the
-    #: init is zero flow and the whole displacement must be found within
-    #: the level (36 px at 1/2^max_level scale = a 144 px flow at full
-    #: resolution for max_level=2 — beyond cv2's practical range for a
-    #: 45 px window).
-    iter_margin_top: int = 32
     #: compute the per-point residual err output at level 0 (OpenCV's err;
-    #: the reference pipeline never reads it — benches turn this off to
-    #: skip a 2304-point dynamic-slice extraction pass).
+    #: the reference pipeline never reads it, so the pathfinder CLI and
+    #: the benchmark turn it off).
     compute_err: bool = True
-    #: static-grid kernel: early-exit the iteration loop when every point
-    #: in the block converged (while_loop) vs a fixed-trip fori_loop.
-    early_exit: bool = True
-    #: static-grid kernel layout: 'lanes' (ops/lk_pallas3.py — 128 points
-    #: on the lane axis, every lane live; the round-3 kernel, 94-116 fps
-    #: sparse 1080p vs 56-63 for 'blocked') or 'blocked'
-    #: (ops/lk_pallas2.py — window x on lanes, 46/128 live).
-    grid_kernel: str = "lanes"
-    #: lanes kernel: x4 u8-in-int32 PACKED alignment ladders
-    #: (lk_iterate_grid_lanes_packed) at the TOP pyramid level, whose
-    #: 7-bit ladder over its (110, 112) crop was 66% of that level's
-    #: per-iteration cost (round-4 measurement; 8.65 -> 8.2 ms/pair).
-    #: The lower levels stay unpacked: their rolls are hidden under the
-    #: blend/reduce work and the byte-plane unpack only added cost
-    #: (measured 9.9 ms/pair all-packed). Packing is numerically exact
-    #: (u8 pixels round-trip int32 words); only f32 summation order
-    #: differs (<=0.04 px, status bits identical).
-    lanes_packed: bool = True
-    #: static-grid lanes path: large-flow RESCUE pass at level 0. Points
-    #: whose coarse init falls outside the anchor-centered static slab
-    #: freeze there (the slab budgets above); on the violent corpus clips
-    #: that froze 25-29% of points >0.5 px from cv2 (round-4
-    #: quality_sparse). The rescue re-solves EVERY point against a slab
-    #: carved at its own coarse init (slab == iteration crop, the packed
-    #: top-level kernel geometry — ops/lk_pallas3.py) and the frozen
-    #: points take the rescue result. cv2 has no range limit
-    #: (pathfinder_viewer.py:154-158); this restores its unbounded-
-    #: displacement semantics at the cost of one extra L0 solve + a
-    #: per-point dynamic slab extraction.
-    rescue_large: bool = True
-    #: which levels get init-centered slabs: None (default) = every
-    #: level below top; an int k = only levels < k. Round 5 shipped k=1
-    #: (L0 only) because each rescued level cost ~2304 dynamic slices =
-    #: ~2.8 ms/pair (L0+L1 13.75 ms/pair vs 11.02 L0-only); the aligned
-    #: DMA carve (round-5 continuation) inverted that: L0+L1
-    #: init-centered runs FASTER than L0-only (8.64 vs 9.41 ms/pair,
-    #: benchmarks/probe_carve_ctx.py) because the init-centered L1 slab
-    #: replaces the static path's wider slab and its large phase-A
-    #: ladder — and it is the higher-quality config (BASELINE.md r5
-    #: quality table: raw div 1.2-7.7% vs 9.41% worst-clip at L0-only,
-    #: masks 99.16-99.51%).
-    rescue_levels: int | None = None
-    #: drift budget of the init-centered rescue pass (px at the rescued
-    #: level's scale). Wider than iter_margin because a level-1-frozen
-    #: point's rescue init is its LEVEL-2 estimate, whose error can
-    #: exceed 12 px at full res; 20 covers it at ~the same extraction
-    #: cost (slice count unchanged) and one extra ladder bit per
-    #: iteration sample.
-    rescue_margin: int = 20
-    #: init-centered carve backend (the rescue pass and the
-    #: points_lanes tracker path): 'auto' routes the per-point slab
-    #: extraction through the aligned Pallas DMA kernel
-    #: (ops/carve_pallas.py, ~0.25 us/slab vs ~1.34 us/slice for the
-    #: XLA gather) on TPU when there are >= 256 points; True/False
-    #: force it. Results are bit-identical to the gather carve — the
-    #: lanes kernel's phase-A ladder absorbs the 8-px origin
-    #: quantization (measured + pinned, tests/test_carve.py).
-    carve_dma: str | bool = "auto"
 
     @property
     def win_area(self) -> int:
         return self.win_size[0] * self.win_size[1]
 
 
-#: Tracker-flavoured LK (reference SparseOF.py:6-8). The tracker's
-#: arbitrary (non-grid) points run the points-in-lanes kernel with
-#: init-centered slabs (round 5 — ops/lk.py points_lanes): measured
-#: faster than the v1 per-point kernel at EVERY capacity on the 1080p
-#: tracker scan (cap 64: 381 vs 346 fps; 256: 187 vs 134; 512: 114 vs
-#: 78; 1024: 62 vs 39; 2048: 28 vs 18 — BASELINE.md round-5 scaling
-#: table), and matches it to ~1e-3 px with identical status bits.
-TRACKER_LK = LKParams(
-    win_size=(15, 15), max_level=2, max_iters=10, eps=0.03,
-    use_pallas=True, slab_margin=8, points_lanes=True,
-)
+#: Tracker-flavoured LK (reference SparseOF.py:6-8).
+TRACKER_LK = LKParams(win_size=(15, 15), max_level=2, max_iters=10, eps=0.03)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,26 +62,15 @@ class FarnebackParams:
 
     warp_mode selects how the second frame's polynomial coefficients are
     displaced by the current flow each iteration:
-      - "exact": bilinear warp of the 5 coefficient channels — OpenCV
-        semantics, ~1e-5 px EPE vs cv2 (the golden-test path);
+      - "exact" (default): bilinear warp of the 5 coefficient channels —
+        OpenCV semantics, ~1e-5 px EPE vs cv2 (the golden-test path);
       - "image": warp the grayscale image once per iteration and re-expand
-        — 5x fewer gathered elements (gathers are the TPU bottleneck),
-        first-order-equivalent for locally smooth flow; EPE vs cv2 stays
-        well inside the 0.5 px budget (see tests/test_farneback.py);
+        — 5x fewer gathered elements, first-order-equivalent for locally
+        smooth flow; EPE vs cv2 stays well inside the 0.5 px budget;
       - "hybrid": image-mode warps for the early iterations, exact
         coefficient warp for each level's final matrix update;
       - "packed": exact semantics with bf16-pair coefficient gathers
-        (12 elements/px instead of 20, ~1e-3 px EPE);
-      - "pallas": the tiled slab kernel (ops/warp_pallas.py) — no gathers
-        at all (~11x faster than 'packed' on-chip at 720p); samples
-        deviating >72/128 px from their tile's minimum sample clamp to
-        the slab edge (beyond the corpus' worst per-tile spread; ~6e-3 px
-        mean EPE vs cv2);
-      - "pallas_bf16": 'pallas' with bf16 slabs — halves the kernel's
-        slab DMA (its binding cost); coefficients round to bf16 before
-        the copy, candidate math stays f32 (~1e-2 px EPE vs cv2);
-      - "auto" (default): 'pallas' on TPU, 'exact' elsewhere (the slab
-        kernel only pays off on real hardware; interpret mode is slow).
+        (12 elements/px instead of 20, ~1e-3 px EPE).
     """
 
     pyr_scale: float = 0.5
@@ -209,13 +80,7 @@ class FarnebackParams:
     poly_n: int = 5
     poly_sigma: float = 1.2
     gaussian_win: bool = False  # flags=0 in the reference -> box filter
-    warp_mode: str = "auto"
-    #: pallas warp kernel: rows per y-tent group (the per-lane row
-    #: selection granularity — only the 2 bilinear rows of each group
-    #: carry weight, so smaller groups waste fewer gathered rows at the
-    #: cost of more scalar-gated group dispatches). 16 = round-3 shape;
-    #: 8 measured in-context round 5 (see BASELINE.md).
-    warp_group_rows: int = 16
+    warp_mode: str = "exact"
 
 
 @dataclasses.dataclass(frozen=True)

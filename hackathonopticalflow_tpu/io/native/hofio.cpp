@@ -1,4 +1,4 @@
-// Native host-runtime kernels for the TPU optical-flow framework.
+// Native host-runtime kernels for the optical-flow framework.
 //
 // The reference delegates its host-side work to OpenCV C++ through cv2
 // (SURVEY.md §2.3); this library provides the framework's own native

@@ -1,14 +1,15 @@
 """Host-side video decode.
 
-TPUs do not decode video; frames are decoded on the host (cv2/ffmpeg) into
-pinned numpy buffers and transferred to device by the prefetch pipeline
-(io/prefetch.py). This module mirrors the reference's access patterns:
-sequential playback (pathfinder_viewer.py:274) and random-access frame
-grabs by index (Operations.py:8-33, CAP_PROP_POS_FRAMES seeks).
+Frames are decoded on the host into numpy buffers and transferred to the
+device by the prefetch pipeline (io/prefetch.py). This module mirrors the
+reference's access patterns: sequential playback (pathfinder_viewer.py:274)
+and random-access frame grabs by index (Operations.py:8-33,
+CAP_PROP_POS_FRAMES seeks).
 
-OpenCV is optional at runtime: it is the decode backend when present and
-the golden-test oracle; raw .npy/.npz frame dumps are supported for
-cv2-free environments.
+Two sources: video files through OpenCV, when it is installed, and raw
+frame stacks saved with numpy — a `.npy` array, or the `frames` array of
+a `.npz` (an optional scalar `fps` beside it) — of shape (T, H, W) gray
+or (T, H, W, 3) BGR uint8. The frame stacks need no OpenCV.
 """
 
 from __future__ import annotations
@@ -22,18 +23,72 @@ try:  # pragma: no cover - availability depends on the environment
     import cv2
 
     HAVE_CV2 = True
-except Exception:  # pragma: no cover
+except ImportError:  # pragma: no cover
     cv2 = None
     HAVE_CV2 = False
 
+#: frame rate reported for frame stacks that do not record one
+DEFAULT_FPS = 25.0
+
+
+def to_gray(frame: np.ndarray) -> np.ndarray:
+    """uint8 gray frame: 2-D frames pass through, BGR goes through the
+    native converter (io/native) or OpenCV (same rounding)."""
+    if frame.ndim == 2:
+        return frame
+    from . import native_lib
+
+    if native_lib.available():
+        return native_lib.bgr2gray_u8(frame)
+    return cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
+
+
+class _StackCapture:
+    """cv2.VideoCapture-shaped reader over an in-memory frame stack."""
+
+    def __init__(self, path: str):
+        if path.endswith(".npz"):
+            with np.load(path) as z:
+                self.frames = np.asarray(z["frames"])
+                self.fps = float(z["fps"]) if "fps" in z else DEFAULT_FPS
+        else:
+            self.frames = np.load(path, mmap_mode="r")
+            self.fps = DEFAULT_FPS
+        if self.frames.ndim not in (3, 4) or self.frames.dtype != np.uint8:
+            raise ValueError(
+                f"{path}: expected a (T, H, W[, 3]) uint8 frame stack, got "
+                f"{self.frames.shape} {self.frames.dtype}"
+            )
+        self.pos = 0
+
+    def read(self) -> np.ndarray | None:
+        if self.pos >= len(self.frames):
+            return None
+        frame = np.array(self.frames[self.pos])
+        self.pos += 1
+        return frame
+
 
 class VideoReader:
-    """Sequential/seekable frame reader over cv2.VideoCapture."""
+    """Sequential/seekable frame reader over a video file (cv2) or a
+    .npy/.npz frame stack."""
 
     def __init__(self, path: str | pathlib.Path):
-        if not HAVE_CV2:
-            raise RuntimeError("cv2 is required for video decode")
         self.path = str(path)
+        self.stack = None
+        self.cap = None
+        if self.path.endswith((".npy", ".npz")):
+            if not pathlib.Path(self.path).exists():
+                raise FileNotFoundError(self.path)
+            self.stack = _StackCapture(self.path)
+            t, h, w = self.stack.frames.shape[:3]
+            self.length, self.fps, self.width, self.height = t, self.stack.fps, w, h
+            return
+        if not HAVE_CV2:
+            raise RuntimeError(
+                "cv2 is required to decode video files; .npy/.npz frame "
+                "stacks need no decoder"
+            )
         self.cap = cv2.VideoCapture(self.path)
         if not self.cap.isOpened():
             raise FileNotFoundError(self.path)
@@ -43,9 +98,14 @@ class VideoReader:
         self.height = int(self.cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
 
     def seek(self, frame_idx: int) -> None:
-        self.cap.set(cv2.CAP_PROP_POS_FRAMES, frame_idx)
+        if self.stack is not None:
+            self.stack.pos = frame_idx
+        else:
+            self.cap.set(cv2.CAP_PROP_POS_FRAMES, frame_idx)
 
     def read(self) -> np.ndarray | None:
+        if self.stack is not None:
+            return self.stack.read()
         ok, frame = self.cap.read()
         return frame if ok else None
 
@@ -53,7 +113,7 @@ class VideoReader:
         frame = self.read()
         if frame is None:
             return None
-        return cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
+        return to_gray(frame)
 
     def frames(self, start: int = 0, count: int | None = None) -> Iterator[np.ndarray]:
         if start:
@@ -67,7 +127,8 @@ class VideoReader:
             n += 1
 
     def release(self) -> None:
-        self.cap.release()
+        if self.cap is not None:
+            self.cap.release()
 
     def __enter__(self):
         return self
@@ -92,7 +153,7 @@ def read_frames(
 
 
 def read_gray_pair(path: str | pathlib.Path, idx: int = 0) -> tuple[np.ndarray, np.ndarray]:
-    """Deterministic consecutive gray frame pair — the kernel-test fixture
-    (analog of the reference's frame-pair development workflow)."""
+    """Deterministic consecutive gray frame pair (analog of the
+    reference's frame-pair development workflow)."""
     a, b = read_frames(path, [idx, idx + 1], gray=True)
     return a, b

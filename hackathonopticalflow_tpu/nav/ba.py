@@ -8,7 +8,7 @@ Levenberg-damped Gauss-Newton:
 
     r_{kl} = proj(R_k X_l + t_k) - z_{kl}
 
-Structure exploited the TPU way: everything is batched einsum algebra —
+Structure exploited for the accelerator: everything is batched einsum algebra —
 per-observation 2x6 / 2x3 Jacobians vmapped over (M, L); the landmark
 blocks C_l (3x3, block diagonal) are inverted in a batch; the reduced
 camera system

@@ -1,4 +1,4 @@
-"""Farneback dense optical flow (TPU-native).
+"""Farneback dense optical flow.
 
 From-scratch XLA implementation numerically faithful to
 cv2.calcOpticalFlowFarneback as called by the reference
@@ -11,7 +11,7 @@ poly_n 5, poly_sigma 1.2, flags 0):
 - polynomial expansion: separable Gaussian-weighted moment correlations
   {g, x*g, x^2*g} (replicate borders) combined through the inverse Gram
   matrix entries (ig11, ig03, ig33, ig55) into the 5 coefficient channels
-  [b_y, b_x, a_yy, a_xx, a_xy-ish] — pure MXU/VPU work;
+  [b_y, b_x, a_yy, a_xx, a_xy-ish] — separable multiply-adds;
 - matrix update: bilinear warp of the second image's coefficients by the
   current flow, averaging of the quadratic terms, delta-b linearized at the
   prior flow, the OpenCV edge down-weighting band (BORDER=5), producing the
@@ -21,12 +21,11 @@ poly_n 5, poly_sigma 1.2, flags 0):
 - coarse-to-fine: INTER_LINEAR flow upscale times 1/pyr_scale.
 
 The whole computation is dense (H, W) tensor algebra with static shapes —
-ideal XLA/TPU form; the only gather is the bilinear coefficient warp.
+plain XLA; the only gather is the bilinear coefficient warp.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -126,15 +125,13 @@ def update_matrices(
     r1: jnp.ndarray,
     flow: jnp.ndarray,
     mode: str = "exact",
-    group_rows: int = 16,
 ) -> jnp.ndarray:
     """Build the 5-channel normal-equation field M from the polynomial
     coefficients of both frames and the current flow. (OpenCV
     FarnebackUpdateMatrices parity.)
 
     mode selects the bilinear-warp implementation: 'exact' (flat element
-    gathers), 'packed' (bf16-pair gathers, 12 elements/px), or 'pallas'
-    (the tiled slab kernel in ops/warp_pallas.py — no gathers)."""
+    gathers) or 'packed' (bf16-pair gathers, 12 elements/px)."""
     _, h, w = r0.shape
     dx = flow[..., 0]
     dy = flow[..., 1]
@@ -151,23 +148,12 @@ def update_matrices(
     x1i = jnp.clip(x1.astype(jnp.int32), 0, w - 2)
     y1i = jnp.clip(y1.astype(jnp.int32), 0, h - 2)
 
-    if mode in ("pallas", "pallas_bf16"):
-        from .warp_pallas import supports, warp_bilinear_pallas
-
-        if supports(h, w):
-            dt = jnp.bfloat16 if mode == "pallas_bf16" else jnp.float32
-            w2 = warp_bilinear_pallas(
-                r1, fx, fy, slab_dtype=dt, group_rows=group_rows
-            )
-            return _assemble_m(r0, w2, inside, dx, dy, h, w)
-        mode = "exact"  # level too small for the slab geometry
-
     if mode == "packed":
         w2 = _warp5_packed(r1, y1i, x1i, ax, ay, h, w)
         return _assemble_m(r0, w2, inside, dx, dy, h, w)
 
-    # flattened-index element gathers: measurably the fastest XLA gather
-    # form on TPU (multi-element gather slices lower to slow slice loops)
+    # flattened-index element gathers: one 1-element gather per corner
+    # and channel, which XLA fuses with the blend below
     lin = (y1i * w + x1i).reshape(-1)
     corners = jnp.stack([lin, lin + 1, lin + w, lin + w + 1], axis=0)  # (4, N)
     rf = r1.reshape(5, h * w)
@@ -221,7 +207,7 @@ def _assemble_m(r0, w2, inside, dx, dy, h, w) -> jnp.ndarray:
 def _warp5_packed(r1: jnp.ndarray, y1i, x1i, ax, ay, h, w) -> jnp.ndarray:
     """Bilinear warp of the 5 coefficient channels with bf16 pairs packed
     into u32 words: 12 gathered elements per pixel instead of 20 (element
-    count is the measured gather cost unit on TPU). The packed channels
+    count is the gather's cost unit). The packed channels
     round to bf16 (~0.4% rel) — used by warp_mode='packed'."""
     def pack(a, b):
         ab = jax.lax.bitcast_convert_type(a.astype(jnp.bfloat16), jnp.uint16)
@@ -302,36 +288,11 @@ def update_matrices_prewarped(
     )
 
 
-def update_flow_blur(
-    m: jnp.ndarray, win_size: int, method: str = "doubling"
-) -> jnp.ndarray:
+def update_flow_blur(m: jnp.ndarray, win_size: int) -> jnp.ndarray:
     """Solve for flow from box-averaged M (OpenCV FarnebackUpdateFlow_blur:
     window sums scaled by 1/win^2, then the 1e-3-damped 2x2 Cramer solve).
-
-    method='doubling': ops/image.box_sum (bit-faithful summation order;
-    the exact-parity golden path). method='cumsum': integral-image box —
-    2 cumsums + 2 subtractions instead of ~12 slice-add passes; measured
-    3x faster at 720p on TPU (0.295 vs 0.868 ms, round 4) because the
-    doubling chain's intermediates are HBM-bound. Running-sum f32
-    rounding adds ~1e-6 relative noise to the window sums — used by the
-    TPU (pallas-warp) fast path, whose EPE budget is ~6e-3 px anyway."""
-    if method == "cumsum":
-        # the (r+1, r) pad below is only shape-correct for odd windows;
-        # an even win_size would silently emit one extra row/col per axis
-        if win_size % 2 != 1:
-            raise ValueError(
-                f"cumsum box requires odd win_size, got {win_size}"
-            )
-        r = win_size // 2
-        p = jnp.pad(
-            m, ((0, 0), (r + 1, r), (r + 1, r)), mode="edge"
-        )
-        c = jnp.cumsum(p, axis=-2)
-        srow = c[:, win_size:, :] - c[:, :-win_size, :]
-        c2 = jnp.cumsum(srow, axis=-1)
-        ms = c2[:, :, win_size:] - c2[:, :, :-win_size]
-    else:
-        ms = box_sum(m, win_size, mode="edge")
+    The window sums use ops/image.box_sum (doubling partial sums)."""
+    ms = box_sum(m, win_size, mode="edge")
     return _cramer_solve(ms * (1.0 / (win_size * win_size)))
 
 
@@ -362,13 +323,6 @@ def _cramer_solve(ms: jnp.ndarray) -> jnp.ndarray:
     fx = (g11 * h2 - g12 * h1) * idet
     fy = (g22 * h1 - g12 * h2) * idet
     return jnp.stack([fx, fy], axis=-1)
-
-
-def _resolve_mode(params: FarnebackParams) -> FarnebackParams:
-    if params.warp_mode == "auto":
-        mode = "pallas" if jax.default_backend() == "tpu" else "exact"
-        params = dataclasses.replace(params, warp_mode=mode)
-    return params
 
 
 def _level_shapes(h: int, w: int, params: FarnebackParams):
@@ -419,14 +373,7 @@ def _init_top_flow(flow0, hk: int, wk: int, scale: float) -> jnp.ndarray:
 def _solve_flow(m: jnp.ndarray, params: FarnebackParams) -> jnp.ndarray:
     if params.gaussian_win:
         return update_flow_gaussian(m, params.win_size)
-    # the Pallas-warp fast path takes the integral-image box (3x faster
-    # on TPU); the exact golden path keeps the bit-faithful doubling sum
-    method = (
-        "cumsum"
-        if params.warp_mode in ("pallas", "pallas_bf16")
-        else "doubling"
-    )
-    return update_flow_blur(m, params.win_size, method=method)
+    return update_flow_blur(m, params.win_size)
 
 
 def farneback_prepared(
@@ -438,10 +385,11 @@ def farneback_prepared(
     """farneback() on prepare_frame() pyramids (coefficient warp modes
     only — 'image'/'hybrid' re-expand inside the iteration and gain
     nothing from preparation). Numerics identical to farneback()."""
-    params = _resolve_mode(params)
-    assert params.warp_mode in ("exact", "packed", "pallas", "pallas_bf16"), (
-        params.warp_mode
-    )
+    if params.warp_mode not in ("exact", "packed"):
+        raise ValueError(
+            f"farneback_prepared needs a coefficient warp mode (exact, "
+            f"packed), got {params.warp_mode!r}"
+        )
     flow = None
     for r0, r1 in zip(rs_prev, rs_next):
         _, hk, wk = r0.shape
@@ -456,17 +404,11 @@ def farneback_prepared(
             flow = jnp.moveaxis(
                 resize_bilinear(jnp.moveaxis(flow, -1, 0), hk, wk), 0, -1
             ) * (1.0 / params.pyr_scale)
-        m = update_matrices(
-            r0, r1, flow, mode=params.warp_mode,
-            group_rows=params.warp_group_rows,
-        )
+        m = update_matrices(r0, r1, flow, mode=params.warp_mode)
         for i in range(params.iterations):
             flow = _solve_flow(m, params)
             if i < params.iterations - 1:
-                m = update_matrices(
-                    r0, r1, flow, mode=params.warp_mode,
-                    group_rows=params.warp_group_rows,
-                )
+                m = update_matrices(r0, r1, flow, mode=params.warp_mode)
     return flow
 
 
@@ -483,9 +425,6 @@ def farneback(
     prev = prev.astype(jnp.float32)
     nxt = nxt.astype(jnp.float32)
     h, w = prev.shape
-    if params.warp_mode == "auto":
-        mode = "pallas" if jax.default_backend() == "tpu" else "exact"
-        params = dataclasses.replace(params, warp_mode=mode)
 
     flow = None
     for k in range(params.levels, -1, -1):
@@ -523,15 +462,12 @@ def farneback(
                 )
                 return update_matrices_prewarped(r0, r1w, fl)
 
-        if params.warp_mode in ("exact", "hybrid", "packed", "pallas", "pallas_bf16"):
+        if params.warp_mode in ("exact", "hybrid", "packed"):
             r1 = poly_exp(imgs[1], params.poly_n, params.poly_sigma)
             coef_mode = params.warp_mode if params.warp_mode != "hybrid" else "exact"
 
             def make_m_exact(fl):
-                return update_matrices(
-                    r0, r1, fl, mode=coef_mode,
-                    group_rows=params.warp_group_rows,
-                )
+                return update_matrices(r0, r1, fl, mode=coef_mode)
 
         if params.warp_mode == "image":
             make_m_iter = make_m_final = make_m_img

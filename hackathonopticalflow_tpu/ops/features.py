@@ -78,7 +78,14 @@ def good_features_to_track(
     cand = jnp.where((eig > 0) & (eig == dil) & border_ok, eig, 0.0)
 
     k = min(params.max_candidates, h * w)
-    vals, idx = lax.top_k(cand.reshape(-1), k)
+    # the k strongest by a stable sort (ties in index order, as top_k):
+    # one lax.top_k over a whole 1080p frame (2M elements) makes XLA's GPU
+    # compiler exhaust host memory (PERF.md)
+    flat = cand.reshape(-1)
+    neg, order = lax.sort(
+        (-flat, lax.iota(jnp.int32, flat.shape[0])), num_keys=1, is_stable=True
+    )
+    vals, idx = -neg[:k], order[:k]
     cx = (idx % w).astype(jnp.float32)
     cy = (idx // w).astype(jnp.float32)
     cand_ok = vals > 0

@@ -10,48 +10,23 @@ All functions take (..., H, W) float32 arrays and are jit-friendly
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
-# Parity-critical convolutions run in full f32 on the MXU.
+# Parity-critical matrix products (resize_area) keep full f32: on the GPU
+# a default-precision f32 matmul may run in TF32.
 _PRECISION = lax.Precision.HIGHEST
 
 
-def _to_nchw(img: jnp.ndarray) -> tuple[jnp.ndarray, tuple[int, ...]]:
-    """Reshape (..., H, W) -> (N, 1, H, W) remembering the batch shape."""
-    batch_shape = img.shape[:-2]
-    h, w = img.shape[-2:]
-    return img.reshape((-1, 1, h, w)), batch_shape
-
-
-def conv2d_single(img: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
-    """VALID 2-D correlation of (..., H, W) with (kh, kw)."""
-    x, batch_shape = _to_nchw(img)
-    k = kernel[None, None, :, :].astype(img.dtype)
-    y = lax.conv_general_dilated(
-        x, k, window_strides=(1, 1), padding="VALID", precision=_PRECISION
-    )
-    return y.reshape(batch_shape + y.shape[-2:])
-
-
-def _band_matrix(n_in: int, k: jnp.ndarray) -> jnp.ndarray:
-    """(n_in, n_out) banded matrix B with B[i, j] = k[i - j]: a VALID
-    correlation along an axis becomes x @ B — the TPU-native formulation
-    (1-channel convolutions do not map onto the MXU; banded matmuls do)."""
-    kk = len(k)
-    n_out = n_in - kk + 1
-    i = jax.lax.broadcasted_iota(jnp.int32, (n_in, n_out), 0)
-    j = jax.lax.broadcasted_iota(jnp.int32, (n_in, n_out), 1)
-    d = i - j
-    band = jnp.zeros((n_in, n_out), k.dtype)
-    for t in range(kk):
-        band = band + jnp.where(d == t, k[t], 0)
-    return band
-
-
-def _use_mxu() -> bool:
-    return jax.default_backend() == "tpu"
+def _correlate1d(x: jnp.ndarray, k: jnp.ndarray, axis: int) -> jnp.ndarray:
+    """VALID correlation of an already-padded array with taps k along
+    `axis`, as len(k) shifted multiply-adds in f32 (one fused loop)."""
+    n_out = x.shape[axis] - len(k) + 1
+    acc = None
+    for t in range(len(k)):
+        part = lax.slice_in_dim(x, t, t + n_out, axis=axis) * k[t]
+        acc = part if acc is None else acc + part
+    return acc
 
 
 def sep_conv2d(
@@ -65,42 +40,18 @@ def sep_conv2d(
 
     mode: any jnp.pad mode — 'reflect' == cv2 BORDER_REFLECT_101 (default for
     GaussianBlur / Scharr), 'edge' == BORDER_REPLICATE, 'constant' == zeros.
-    Output has the same spatial shape as the input.
-
-    On TPU the two passes run as banded-matrix matmuls on the MXU
-    (precision HIGHEST keeps f32-grade accuracy for the parity budget);
-    on CPU the direct convolution path is cheaper.
+    Output has the same spatial shape as the input. Both passes are
+    shifted multiply-adds (see PERF.md for the form chosen on the GPU).
     """
     ky = jnp.asarray(ky, img.dtype)
     kx = jnp.asarray(kx, img.dtype)
     ry, rx = len(ky) // 2, len(kx) // 2
     pad = [(0, 0)] * (img.ndim - 2) + [(ry, ry), (rx, rx)]
     x = jnp.pad(img, pad, mode=mode)
-    if _use_mxu():
-        # narrow kernels: shifted multiply-adds on the VPU (a k-tap conv
-        # as a k x n_out banded MATMUL pays n_out/k times the FLOPs — a
-        # ~300x waste for Scharr/pyrDown taps at 1080p)
-        if 1 < len(kx) <= 9:
-            w_out = x.shape[-1] - len(kx) + 1
-            acc = x[..., :w_out] * kx[0]
-            for t in range(1, len(kx)):
-                acc = acc + x[..., t : t + w_out] * kx[t]
-            x = acc
-        elif len(kx) > 1:
-            bx = _band_matrix(x.shape[-1], kx)
-            x = jnp.einsum("...hw,wo->...ho", x, bx, precision=_PRECISION)
-        if 1 < len(ky) <= 9:
-            h_out = x.shape[-2] - len(ky) + 1
-            acc = x[..., :h_out, :] * ky[0]
-            for t in range(1, len(ky)):
-                acc = acc + x[..., t : t + h_out, :] * ky[t]
-            x = acc
-        elif len(ky) > 1:
-            by = _band_matrix(x.shape[-2], ky)
-            x = jnp.einsum("...hw,ho->...ow", x, by, precision=_PRECISION)
-        return x
-    x = conv2d_single(x, ky[:, None])
-    x = conv2d_single(x, kx[None, :])
+    if len(ky) > 1:
+        x = _correlate1d(x, ky, axis=img.ndim - 2)
+    if len(kx) > 1:
+        x = _correlate1d(x, kx, axis=img.ndim - 1)
     return x
 
 
@@ -139,8 +90,7 @@ def _box1d(x: jnp.ndarray, k: int, axis: int) -> jnp.ndarray:
     via doubling: build power-of-2 partial sums (S_2p[i] = S_p[i] +
     S_p[i+p]) and combine k's binary decomposition — ceil(log2 k) +
     popcount(k) - 1 adds instead of k-1 (6 vs 14 for Farneback's
-    winsize 15; the >9-tap path otherwise lowers to a banded matmul at
-    ~1% MXU utilization)."""
+    winsize 15)."""
 
     def sl(a, start, length):
         idx = [slice(None)] * a.ndim

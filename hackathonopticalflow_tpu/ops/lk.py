@@ -1,4 +1,4 @@
-"""Pyramidal iterative Lucas-Kanade sparse optical flow (TPU-native).
+"""Pyramidal iterative Lucas-Kanade sparse optical flow.
 
 A from-scratch XLA implementation numerically faithful to
 cv2.calcOpticalFlowPyrLK as called by the reference
@@ -19,19 +19,20 @@ eps 0.03; SparseOF.py:6-8: win 15x15), including:
 - coarse-to-fine x2 upscaling of the estimate, with invalid points
   passing their current estimate through unchanged (OpenCV `continue`).
 
-TPU-first formulation: points are processed as one dense (N, win, win)
-batch per pyramid level; window sampling uses the shared-fractional-offset
-bilinear trick in ops/patch.py (one aligned dynamic slice + 4 shifted
-blends per point) instead of scattered gathers. Everything is jittable
-with static shapes; per-point control flow (convergence, out-of-bounds,
-degenerate tensors) is carried as masks through a fori_loop.
+The XLA form processes points as one dense (N, win, win) batch per
+pyramid level; window sampling uses the shared-fractional-offset bilinear
+trick in ops/patch.py (one (win+1)^2 dynamic slice + 4 shifted blends per
+point). Per-point control flow (convergence, out-of-bounds, degenerate
+tensors) is carried as masks through a fori_loop. On CUDA each level's
+loop runs instead as one Triton kernel with a per-point early exit
+(ops/lk_triton.py). Everything is jittable with static shapes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -44,6 +45,7 @@ from .patch import (
     extract_slabs,
     select_windows,
 )
+from .lk_triton import level_lk_triton
 from .pyramid import build_pyramid
 
 _FLT_EPSILON = 1.1920929e-07
@@ -71,174 +73,10 @@ class PreparedFrame(NamedTuple):
 
 
 def _frame_pad(params: LKParams) -> int:
-    """Window-sampling border pad. The static-grid path needs extra room:
-    slab margins (57/48 px, round 5) plus the half-window can reach
-    ~80 px beyond the frame (ops/grid_patch.py carve asserts cover any
-    residual violation)."""
+    """Window-sampling border pad: a window whose top-left passes the oob
+    gate (floor >= -win) still lies inside the padded plane."""
     win_w, win_h = params.win_size
-    pad = max(win_w, win_h) + 2
-    if params.grid_step is not None:
-        half = (max(win_w, win_h) - 1) // 2
-        m = max(
-            params.slab_margin_x, params.slab_margin_y, params.iter_margin_top
-        )
-        pad = max(pad, half + m + 2)
-        if params.rescue_large:
-            pad = max(pad, _init_centered_pad(win_w, win_h, params.rescue_margin))
-    if params.use_pallas and params.points_lanes:
-        m = params.slab_margin if params.slab_margin is not None else 8
-        pad = max(pad, _init_centered_pad(win_w, win_h, m))
-    return pad
-
-
-def _init_centered_pad(win_w: int, win_h: int, margin: int) -> int:
-    """Border pad needed by the init-centered slab carve: the clamped
-    init reaches win + 2 beyond the frame, the carve reaches margin
-    past it, and the x slice width is the 8-ALIGNED crop (cxp), whose
-    rounding slack s would otherwise let lax.dynamic_slice clamp
-    silently and shift slab content relative to the sb origin the
-    kernel is told (round-5 review finding — the shipped defaults only
-    escaped because their slack points were already oob-dead).
-
-    Exact bounds: x slice end sb_x + cxp <= w + pad with sb_x up to
-    w + 2 - margin gives pad >= cxp - margin + 2 = win_w + margin + 3 + s;
-    y needs win_h + margin + 3; slice starts need win + margin + 2."""
-    crop_x = win_w + 1 + 2 * margin
-    slack = (-crop_x) % 8
-    return max(win_w + margin + 3 + slack, win_h + margin + 3)
-
-
-def _carve_init_centered(
-    img_p: jnp.ndarray,
-    next_tl0: jnp.ndarray,
-    status: jnp.ndarray,
-    margin: int,
-    win_w: int,
-    win_h: int,
-    pad: int,
-    np_pad: int,
-    lb: int = 128,
-):
-    """Init-centered slab carve shared by the static-grid rescue pass
-    and the arbitrary-point lanes path (slab == iteration crop — the
-    top-level kernel geometry; ops/lk_pallas3.py derives nothing, the
-    caller passes sb as slab_base).
-
-    Clamps wildly-out-of-frame inits just enough to keep the carve
-    inside the padded plane (clamped points stay beyond the kernel's
-    oob gate, so their status dies as cv2's would; _init_centered_pad
-    guarantees the slice never clamps for any input), extracts one
-    (crop_y, cxp) slab per point and relays to the lanes block layout.
-
-    Returns (slabs_i8 (Nb, crop_y, cxp, lb), sb (np_pad, 2) i32,
-    tlc (np_pad, 2) f32, st (np_pad,) f32)."""
-    from .lk_pallas3 import SLAB_BIAS
-    from .patch import extract_slabs_rect
-
-    h = img_p.shape[0] - 2 * pad
-    w = img_p.shape[1] - 2 * pad
-    crop_y = win_h + 1 + 2 * margin
-    cxp = -(-(win_w + 1 + 2 * margin) // 8) * 8
-    n = next_tl0.shape[0]
-    pad_cols = np_pad - n
-    tlc = jnp.stack(
-        [
-            jnp.clip(next_tl0[:, 0], -(win_w + 2.0), w + 2.0),
-            jnp.clip(next_tl0[:, 1], -(win_h + 2.0), h + 2.0),
-        ],
-        axis=-1,
-    )
-    sb = jnp.floor(tlc).astype(jnp.int32) - margin  # [x, y] unpadded
-    slabs_r = extract_slabs_rect(img_p, sb + pad, crop_y, cxp)
-    s8 = (slabs_r - jnp.float32(SLAB_BIAS)).astype(jnp.int8)
-    if pad_cols:
-        s8 = jnp.pad(s8, ((0, pad_cols), (0, 0), (0, 0)))
-        sb = jnp.pad(sb, ((0, pad_cols), (0, 0)))
-        tlc = jnp.pad(tlc, ((0, pad_cols), (0, 0)))
-    s8 = jnp.transpose(
-        s8.reshape(np_pad // lb, lb, crop_y, cxp), (0, 2, 3, 1)
-    )
-    st = jnp.pad(status.astype(jnp.float32), (0, pad_cols))
-    return s8, sb, tlc, st
-
-
-def _use_dma_carve(params: LKParams, n: int) -> bool:
-    """Whether the init-centered carve should run through the aligned
-    Pallas DMA kernel instead of the XLA gather. 'auto' enables it on
-    TPU from 256 points up: the DMA saves ~1.1 us/point but pays a
-    16-panel i8 restage of the level plane (~0.1 ms at 1080p), so small
-    point sets keep the gather (cap-64 tracker scans LOSE 1.6x with the
-    routes forced on — benchmarks/probe_tracker_minn.py)."""
-    if params.carve_dma == "auto":
-        return jax.default_backend() == "tpu" and n >= 256
-    return bool(params.carve_dma)
-
-
-def _carve_init_centered_dma(
-    img_p: jnp.ndarray,
-    next_tl0: jnp.ndarray,
-    status: jnp.ndarray,
-    margin: int,
-    win_w: int,
-    win_h: int,
-    pad: int,
-    np_pad: int,
-    lb: int = 128,
-):
-    """Aligned-DMA form of _carve_init_centered: origins quantize to
-    8-px and the 16-panel stack makes the in-panel column base provably
-    128-aligned (ops/carve_pallas.py), so each slab is ONE ~0.25 us DMA
-    instead of a ~1.34 us XLA slice. The slab grows to (ry8, 128) and
-    carries the <=7 px quantization offsets; the lanes kernel's phase-A
-    ladder (capped at a_max=7) aligns the crop to EXACTLY the content
-    the un-aligned carve extracts, so results are bit-identical
-    (tests/test_carve.py::test_rescue_dma_carve_matches_slice_carve).
-
-    DMA columns beyond the reflect-padded plane read build_panels'
-    zero fill; they sit outside the phase-A crop (offset + crop <=
-    slab on both axes) and are never consumed.
-
-    Returns (slabs_i8 (Nb, ry8, 128, lb), sb (np_pad, 2) i32 ALIGNED
-    origins, tlc (np_pad, 2) f32, st (np_pad,) f32)."""
-    from .carve_pallas import build_panels, gather_rects_panels
-    from .lk_pallas3 import SLAB_BIAS
-
-    h = img_p.shape[0] - 2 * pad
-    w = img_p.shape[1] - 2 * pad
-    crop_y = win_h + 1 + 2 * margin
-    cxp = -(-(win_w + 1 + 2 * margin) // 8) * 8
-    ry = -(-(crop_y + 7) // 8) * 8
-    rx = 128
-    assert cxp + 7 <= rx, (cxp, "margin too wide for one panel width")
-    n = next_tl0.shape[0]
-    pad_cols = np_pad - n
-    tlc = jnp.stack(
-        [
-            jnp.clip(next_tl0[:, 0], -(win_w + 2.0), w + 2.0),
-            jnp.clip(next_tl0[:, 1], -(win_h + 2.0), h + 2.0),
-        ],
-        axis=-1,
-    )
-    sb = jnp.floor(tlc).astype(jnp.int32) - margin  # [x, y] unpadded
-    x8 = (sb[:, 0] + pad) // 8 * 8
-    y8 = (sb[:, 1] + pad) // 8 * 8
-    if pad_cols:
-        x8 = jnp.pad(x8, (0, pad_cols))
-        y8 = jnp.pad(y8, (0, pad_cols))
-        tlc = jnp.pad(tlc, ((0, pad_cols), (0, 0)))
-    # panel extents cover the worst CLAMPED origin (tlc bounds above)
-    y8max = (h + 2 - margin + pad) // 8 * 8
-    x8max = (w + 2 - margin + pad) // 8 * 8
-    hq = y8max + ry
-    wq = x8max // 128 * 128 + rx
-    panels = build_panels(img_p, height=hq, width=wq, bias=float(SLAB_BIAS))
-    slabs = gather_rects_panels(panels, x8, y8, ry=ry, rx=rx)
-    s8 = jnp.transpose(
-        slabs.reshape(np_pad // lb, lb, ry, rx), (0, 2, 3, 1)
-    )
-    sb_al = jnp.stack([x8 - pad, y8 - pad], axis=-1)
-    st = jnp.pad(status.astype(jnp.float32), (0, pad_cols))
-    return s8, sb_al, tlc, st
+    return max(win_w, win_h) + 2
 
 
 def prepare_frame(img: jnp.ndarray, params: LKParams) -> PreparedFrame:
@@ -262,20 +100,62 @@ def _level_lk(
     level: int,
     params: LKParams,
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """One pyramid level: (next_center, status, err) after the level's
+    Gauss-Newton loop. On CUDA the exact loop runs as the Triton kernel
+    (ops/lk_triton.py); every other backend, and the slab path, runs the
+    XLA form below, which is the reference the kernel is tested against."""
     win_w, win_h = params.win_size
-    half_w = (win_w - 1) * 0.5
-    half_h = (win_h - 1) * 0.5
-    halfwin = jnp.array([half_w, half_h], jnp.float32)
+    halfwin = jnp.array([(win_w - 1) * 0.5, (win_h - 1) * 0.5], jnp.float32)
+    args = (
+        prev_prep.img_p[level],
+        prev_prep.dix_p[level],
+        prev_prep.diy_p[level],
+        next_prep.img_p[level],
+        pts,
+        next_center - halfwin,
+        status,
+    )
+    xla = functools.partial(_level_lk_xla, level=level, params=params)
+    if params.slab_margin is None:
+        kernel = functools.partial(
+            level_lk_triton,
+            level=level,
+            win_size=params.win_size,
+            pad=_frame_pad(params),
+            max_iters=params.max_iters,
+            eps=params.eps,
+            min_eig_threshold=params.min_eig_threshold,
+            compute_err=params.compute_err,
+        )
+        next_tl, status, err = lax.platform_dependent(
+            *args, cuda=kernel, default=xla
+        )
+    else:
+        next_tl, status, err = xla(*args)
+    return next_tl + halfwin, status, err
+
+
+def _level_lk_xla(
+    img_prev_p: jnp.ndarray,
+    dix_p: jnp.ndarray,
+    diy_p: jnp.ndarray,
+    img_next_p: jnp.ndarray,
+    pts: jnp.ndarray,
+    next_tl0: jnp.ndarray,
+    status: jnp.ndarray,
+    *,
+    level: int,
+    params: LKParams,
+) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """XLA form of one level over (N, win, win) window batches. Same
+    signature and results as ops/lk_triton.level_lk_triton: (next_tl,
+    status, err), with err zero unless level 0 and params.compute_err."""
+    win_w, win_h = params.win_size
+    halfwin = jnp.array([(win_w - 1) * 0.5, (win_h - 1) * 0.5], jnp.float32)
     pad = _frame_pad(params)
     eps2 = jnp.float32(max(params.eps, 0.0) ** 2)
-
-    img_prev_p = prev_prep.img_p[level]
-    dix_p = prev_prep.dix_p[level]
-    diy_p = prev_prep.diy_p[level]
-    img_next_p = next_prep.img_p[level]
     h = img_prev_p.shape[0] - 2 * pad
     w = img_prev_p.shape[1] - 2 * pad
-
     scale = jnp.float32(1.0 / (1 << level))
     tmpl_tl = pts * scale - halfwin  # (N, 2) top-left of template window
     it = jnp.floor(tmpl_tl)
@@ -310,108 +190,6 @@ def _level_lk(
     if level == 0:
         status = status & ~bad_tmpl
     inv_det = jnp.where(det > 0, 1.0 / det, 0.0)
-
-    next_tl0 = next_center - halfwin
-
-    if params.use_pallas and params.points_lanes:
-        # Points-in-lanes kernel for ARBITRARY points (round 5): the
-        # same init-centered slab == crop geometry as the static-grid
-        # rescue pass, so displacement is unbounded across levels (each
-        # level re-centers at its init) and the per-point v1 kernel's
-        # capacity-linear cost is replaced by 128-lane blocks. Templates
-        # are the f32 _fix windows quantized x32 to i16 (exact — the
-        # same W_BITS stream the static-grid extractor builds); points
-        # whose template is bad (oob / degenerate tensor) get zero
-        # templates so the kernel's spectral gate deactivates them,
-        # matching the v1 path's active mask.
-        from .lk_pallas3 import lk_iterate_grid_lanes
-
-        margin = params.slab_margin if params.slab_margin is not None else 8
-        n = pts.shape[0]
-        np_pad = -(-n // 128) * 128
-        pad_cols = np_pad - n
-        wwp = -(-win_w // 8) * 8
-        ti = jnp.round(
-            jnp.where(bad_tmpl[:, None, None, None], 0.0, tmpl) * 32.0
-        ).astype(jnp.int16)
-        ti = jnp.pad(
-            ti, ((0, pad_cols), (0, 0), (0, 0), (0, wwp - win_w))
-        )
-        tmpl_lanes = jnp.transpose(ti, (1, 2, 3, 0))  # (3, wh, wwp, NP)
-        if _use_dma_carve(params, n):
-            s8, sb, tlc, st_p = _carve_init_centered_dma(
-                img_next_p, next_tl0, status, margin, win_w, win_h,
-                pad, np_pad,
-            )
-            a_max = 7
-        else:
-            s8, sb, tlc, st_p = _carve_init_centered(
-                img_next_p, next_tl0, status, margin, win_w, win_h,
-                pad, np_pad,
-            )
-            a_max = None
-        next_tl, status_p = lk_iterate_grid_lanes(
-            tmpl_lanes, s8, sb, tlc, st_p,
-            win_w=win_w, win_h=win_h, m_iter=margin,
-            level_w=w, level_h=h, max_iters=params.max_iters,
-            eps2=float(max(params.eps, 0.0) ** 2), is_level0=(level == 0),
-            min_eig_threshold=params.min_eig_threshold,
-            early_exit=params.early_exit, a_max=a_max,
-        )
-        next_tl = next_tl[:n]
-        status = status_p[:n]
-        next_center_out = next_tl + halfwin
-        if level == 0:
-            jw = extract_patches(img_next_p, next_tl + pad_off, win_h, win_w)
-            err = jnp.sum(jnp.abs(jw - iw), axis=(1, 2)) / (win_w * win_h)
-            err = jnp.where(status, err, 0.0)
-        else:
-            err = jnp.zeros(pts.shape[0], jnp.float32)
-        return next_center_out, status, err
-
-    if params.use_pallas:
-        from .lk_pallas import lk_iterate
-
-        margin = params.slab_margin if params.slab_margin is not None else 8
-        m2 = 2 * margin
-        slab_s = max(win_w, win_h) + m2 + 2
-        slab_base = jnp.floor(next_tl0).astype(jnp.int32) - margin + pad
-        hp, wp = img_next_p.shape
-        slab_base = jnp.clip(
-            slab_base, 0, jnp.array([wp - slab_s, hp - slab_s], jnp.int32)
-        )
-        slabs = extract_slabs(img_next_p, slab_base, slab_s)
-        amat = jnp.stack([a11, a12, a22, inv_det], axis=-1)
-        block_n = params.pallas_block
-        n = pts.shape[0]
-        n_pad = (-n) % block_n
-        if n_pad:
-            padder = lambda x: jnp.concatenate([x, jnp.zeros((n_pad,) + x.shape[1:], x.dtype)])
-            iw_p, ixw_p, iyw_p, slabs_p = map(padder, (iw, ixw, iyw, slabs))
-            sb_p, tl_p, am_p = map(padder, (slab_base, next_tl0, amat))
-            act_p = jnp.concatenate([~bad_tmpl, jnp.zeros((n_pad,), bool)])
-            st_p = jnp.concatenate([status, jnp.zeros((n_pad,), bool)])
-        else:
-            iw_p, ixw_p, iyw_p, slabs_p = iw, ixw, iyw, slabs
-            sb_p, tl_p, am_p = slab_base, next_tl0, amat
-            act_p, st_p = ~bad_tmpl, status
-        next_tl, status_out = lk_iterate(
-            iw_p, ixw_p, iyw_p, slabs_p, sb_p, tl_p, am_p, act_p, st_p,
-            pad=pad, margin2=m2, win_w=win_w, win_h=win_h,
-            level_w=w, level_h=h, max_iters=params.max_iters,
-            eps2=float(max(params.eps, 0.0) ** 2), is_level0=(level == 0),
-            block_n=block_n,
-        )
-        next_tl = next_tl[:n]
-        status = status_out[:n]
-        next_center_out = next_tl + halfwin
-        if level == 0:
-            jw = extract_patches(img_next_p, next_tl + pad_off, win_h, win_w)
-            err = jnp.sum(jnp.abs(jw - iw), axis=(1, 2)) / (win_w * win_h)
-            err = jnp.where(status, err, 0.0)
-        else:
-            err = jnp.zeros(pts.shape[0], jnp.float32)
-        return next_center_out, status, err
 
     if params.slab_margin is not None:
         # fast path: one slab per point; iteration windows come from
@@ -477,223 +255,15 @@ def _level_lk(
         0, params.max_iters, body, (next_tl0, jnp.zeros_like(next_tl0), active0, status)
     )
 
-    next_center_out = next_tl + halfwin
     # err at level 0: mean |window residual| (OpenCV's default err output,
     # descaled from its x32 fixed point)
-    if level == 0:
+    if level == 0 and params.compute_err:
         jw = extract_patches(img_next_p, next_tl + pad_off, win_h, win_w)
         err = jnp.sum(jnp.abs(jw - iw), axis=(1, 2)) / (win_w * win_h)
         err = jnp.where(status, err, 0.0)
     else:
         err = jnp.zeros(pts.shape[0], jnp.float32)
-    return next_center_out, status, err
-
-
-def _level_lk_static_grid(
-    prev_prep: PreparedFrame,
-    next_prep: PreparedFrame,
-    grid_xy: tuple,
-    next_center: jnp.ndarray,
-    status: jnp.ndarray,
-    level: int,
-    params: LKParams,
-) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Grid-anchored level step: static template/slab extraction
-    (ops/grid_patch.py) + the phase-A/phase-B kernel (ops/lk_pallas2.py).
-
-    Numerically matches _level_lk for flows inside the slab margins
-    (41 px * 2^level horizontal, 40 px * 2^level vertical) with within-
-    level drift <= iter_margin from the coarse init."""
-    import numpy as np
-
-    from .grid_patch import (
-        extract_grid_slabs_blocked,
-        extract_grid_templates_blocked,
-    )
-    from .lk_pallas2 import lk_iterate_grid
-
-    xs, ys = grid_xy
-    win_w, win_h = params.win_size
-    half_w = (win_w - 1) * 0.5
-    half_h = (win_h - 1) * 0.5
-    halfwin = jnp.array([half_w, half_h], jnp.float32)
-    pad = _frame_pad(params)
-    img_prev_p = prev_prep.img_p[level]
-    h = img_prev_p.shape[0] - 2 * pad
-    w = img_prev_p.shape[1] - 2 * pad
-    if params.grid_kernel == "lanes":
-        # the lanes layout keeps slab width on a free sublane dim, so
-        # margin_x is a real dial (round 5); the v2 blocked kernel needs
-        # slab width exactly 128 lanes
-        margin_x = params.slab_margin_x
-    else:
-        margin_x = (128 - win_w - 1) // 2
-    margin_y = params.slab_margin_y
-
-    planes = jnp.stack(
-        [img_prev_p, prev_prep.dix_p[level], prev_prep.diy_p[level]]
-    )
-    next_tl0 = next_center - halfwin
-    n = next_tl0.shape[0]
-    m_iter = (
-        params.iter_margin_top if level == params.max_level else params.iter_margin
-    )
-
-    if params.grid_kernel == "lanes":
-        from .grid_patch import (
-            extract_grid_slabs_lanes,
-            extract_grid_templates_lanes,
-        )
-        from .lk_pallas3 import lk_iterate_grid_lanes
-
-        # lane blocks are 128 (Mosaic lane-axis blocking); the kernel's
-        # chunked ladders keep even the wide-margin top level's crop in
-        # VMEM at the full block
-        lb = 128
-        np_pad = -(-n // lb) * lb
-        if level == params.max_level:
-            # the top-level init IS the grid anchor: margins of exactly
-            # iter_margin_top make the slab the iteration crop and the
-            # kernel's phase A a single cast (lk_pallas3.py docstring)
-            margin_x_l = m_iter
-            margin_y_l = m_iter
-        else:
-            margin_x_l = margin_x
-            margin_y_l = margin_y
-        tmpl = extract_grid_templates_lanes(
-            planes, xs, ys, level, win_w, win_h, pad, np_pad=np_pad
-        )
-        pad_cols = np_pad - n
-        common = dict(
-            win_w=win_w, win_h=win_h, m_iter=m_iter,
-            level_w=w, level_h=h, max_iters=params.max_iters,
-            eps2=float(max(params.eps, 0.0) ** 2), is_level0=(level == 0),
-            min_eig_threshold=params.min_eig_threshold,
-            early_exit=params.early_exit,
-        )
-        st_p = jnp.pad(status.astype(jnp.float32), (0, pad_cols))
-        rescue_here = (
-            params.rescue_large
-            and level != params.max_level
-            and (params.rescue_levels is None or level < params.rescue_levels)
-        )
-        if rescue_here:
-            # Init-centered slabs at the levels below top (round 5;
-            # VERDICT r4 item 1). The anchor-centered static slab froze
-            # any point whose coarse init fell outside its budget
-            # (|flow_x| ~> 27, |flow_y| ~> 24 px per level scale — 42%/34%
-            # of points at level 0 on the violent corpus clips, measured
-            # benchmarks/analyze_flow_tail.py). Instead carve every
-            # point's slab at its own coarse init: slab == iteration crop
-            # (the top-level kernel geometry — phase A degenerates to a
-            # cast), so the only range limit left is the within-level
-            # drift budget (iter_margin), matching cv2's unbounded-
-            # displacement semantics (pathfinder_viewer.py:154-158).
-            # For points the static slab DID fit, the carved crop content
-            # is bit-identical to the old phase-A crop, so golden parity
-            # is unchanged. Cost: one slice-priced dynamic slice per
-            # point per level instead of the static strided carve.
-            # wider-than-iter_margin basin: a level-1-frozen point
-            # arrives here with a level-2-quality init whose error can
-            # exceed iter_margin; rescue_margin absorbs it
-            m_resc = params.rescue_margin
-            if _use_dma_carve(params, n):
-                s8, sb, tlc, st_p = _carve_init_centered_dma(
-                    next_prep.img_p[level], next_tl0, status, m_resc,
-                    win_w, win_h, pad, np_pad,
-                )
-                a_max = 7
-            else:
-                s8, sb, tlc, st_p = _carve_init_centered(
-                    next_prep.img_p[level], next_tl0, status, m_resc,
-                    win_w, win_h, pad, np_pad,
-                )
-                a_max = None
-            next_tl, status_p = lk_iterate_grid_lanes(
-                tmpl, s8, sb, tlc, st_p,
-                **dict(common, m_iter=m_resc), a_max=a_max,
-            )
-        else:
-            slabs, bx, by = extract_grid_slabs_lanes(
-                next_prep.img_p[level], xs, ys, level, win_w, win_h,
-                margin_x_l, margin_y_l, pad, np_pad=np_pad,
-            )
-            base = np.zeros((np_pad, 2), np.int32)
-            base[:n] = np.stack(
-                np.meshgrid(bx, by, indexing="ij"), -1
-            ).reshape(-1, 2)
-            tl0_p = jnp.pad(next_tl0, ((0, pad_cols), (0, 0)))
-            if params.lanes_packed and level == params.max_level:
-                from .lk_pallas3 import lk_iterate_grid_lanes_packed
-
-                # packed-ladder kernel, TOP level only (round 4): the top
-                # level's 7-bit ladder dominates its iteration cost and
-                # packing cuts it ~4x (8.65 -> 8.2 ms/pair measured). The
-                # lower levels' rolls are already hidden under their
-                # blend/reduce work — routing them through the packed path
-                # ADDED the byte-plane unpack cost for nothing (9.9 ms/pair
-                # measured; do not re-litigate).
-                next_tl, status_p = lk_iterate_grid_lanes_packed(
-                    tmpl, slabs, tl0_p, st_p, **common
-                )
-            else:
-                next_tl, status_p = lk_iterate_grid_lanes(
-                    tmpl, slabs, jnp.asarray(base), tl0_p, st_p, **common
-                )
-        next_tl = next_tl[:n]
-        status = status_p[:n]
-        if level == 0 and params.compute_err:
-            iw_pts = (
-                jnp.transpose(tmpl[0][:, :win_w, :n], (2, 0, 1)).astype(
-                    jnp.float32
-                )
-                / 32.0
-            )
-        else:
-            iw_pts = None
-    else:
-        # (3, Ky, win_h, Kx*128) i16 — the v2 kernel's blocked layout;
-        # the structure tensor / spectral gating happen in-kernel
-        tmpl = extract_grid_templates_blocked(
-            planes, xs, ys, level, win_w, win_h, pad
-        )
-        slabs, bx, by = extract_grid_slabs_blocked(
-            next_prep.img_p[level], xs, ys, level, win_w, win_h,
-            margin_x, margin_y, pad,
-        )
-        base = jnp.asarray(
-            np.stack(np.meshgrid(bx, by, indexing="ij"), -1).reshape(-1, 2),
-            jnp.int32,
-        )
-        next_tl, status = lk_iterate_grid(
-            tmpl, slabs, base, next_tl0, status,
-            win_w=win_w, win_h=win_h, m_iter=m_iter,
-            level_w=w, level_h=h, max_iters=params.max_iters,
-            eps2=float(max(params.eps, 0.0) ** 2), is_level0=(level == 0),
-            min_eig_threshold=params.min_eig_threshold,
-            early_exit=params.early_exit, block_n=params.pallas_block,
-        )
-        if level == 0 and params.compute_err:
-            # tmpl[0] is already point-major (N, win_h, 128lane)
-            iw_pts = tmpl[0][..., :win_w].astype(jnp.float32) / 32.0
-        else:
-            iw_pts = None
-
-    next_center_out = next_tl + halfwin
-    if iw_pts is not None:
-        jw = extract_patches(
-            next_prep.img_p[level], next_tl + jnp.float32(pad), win_h, win_w
-        )
-        err = jnp.sum(jnp.abs(jw - iw_pts), axis=(1, 2)) / (win_w * win_h)
-        err = jnp.where(status, err, 0.0)
-    else:
-        err = jnp.zeros(n, jnp.float32)
-    return next_center_out, status, err
-
-
-def _fix_q(x):
-    """OpenCV W_BITS window quantization (1/32-intensity grid)."""
-    return jnp.floor(x * 32.0 + 0.5) * (1.0 / 32.0)
+    return next_tl, status, err
 
 
 def pyr_lk(
@@ -721,30 +291,7 @@ def pyr_lk_prepared(
     params: LKParams = LKParams(),
 ) -> LKResult:
     """pyr_lk over frames prepared with prepare_frame — the form video
-    scans use so each frame's pyramid is built once, not twice.
-
-    With params.grid_step set, pts MUST be the static measurement grid
-    (core/grid.measurement_grid of the frame size) — the grid-anchored
-    static-extraction kernel path is used (ops/lk_pallas2.py)."""
-    grid_xy = None
-    if params.grid_step is not None:
-        import numpy as np
-
-        from ..core.grid import measurement_grid
-
-        pad = _frame_pad(params)
-        h = prep_prev.img_p[0].shape[0] - 2 * pad
-        w = prep_prev.img_p[0].shape[1] - 2 * pad
-        gpts = measurement_grid(h, w, params.grid_step)
-        assert gpts.shape[0] == pts.shape[0], (
-            f"pts must be measurement_grid({h}, {w}, {params.grid_step}): "
-            f"expected {gpts.shape[0]} points, got {pts.shape[0]}"
-        )
-        grid_xy = (
-            np.unique(gpts[:, 0]).astype(int),
-            np.unique(gpts[:, 1]).astype(int),
-        )
-
+    scans use so each frame's pyramid is built once, not twice."""
     pts = pts.astype(jnp.float32)
     status = jnp.ones(pts.shape[0], dtype=bool)
     err = jnp.zeros(pts.shape[0], jnp.float32)
@@ -752,18 +299,7 @@ def pyr_lk_prepared(
     for level in range(params.max_level, -1, -1):
         if level != params.max_level:
             next_center = next_center * 2.0
-        if grid_xy is not None:
-            next_center, status, err = _level_lk_static_grid(
-                prep_prev, prep_next, grid_xy, next_center, status, level, params
-            )
-        else:
-            next_center, status, err = _level_lk(
-                prep_prev,
-                prep_next,
-                pts,
-                next_center,
-                status,
-                level,
-                params,
-            )
+        next_center, status, err = _level_lk(
+            prep_prev, prep_next, pts, next_center, status, level, params
+        )
     return LKResult(next_pts=next_center, status=status, err=err)

@@ -58,7 +58,7 @@ def kmeans(
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Lloyd k-means over (N, D) samples -> (compactness, labels, centers).
 
-    TPU-native stand-in for cv2.kmeans (the reference's disabled color-
+    Jittable stand-in for cv2.kmeans (the reference's disabled color-
     quantization experiment, DenseOF.py:326-345): the assignment step is
     one (N, K) distance matrix (batched matmul-friendly), the update step
     a masked segment mean; the whole loop is a lax.fori_loop under jit.

@@ -27,7 +27,7 @@ def bilinear_sample(img: jnp.ndarray, xs: jnp.ndarray, ys: jnp.ndarray) -> jnp.n
     y1 = jnp.minimum(y0 + 1, h - 1)
 
     if img.ndim == 2 and x0.shape == y0.shape:
-        # flattened-index element gathers: the fast XLA gather form on TPU
+        # flattened-index element gathers: one 1-element gather per corner
         lin = (y0 * w + x0).reshape(-1)
         shape = x0.shape
         corners = jnp.stack(

@@ -5,8 +5,8 @@ Exports resolve LAZILY (PEP 562): `init_multihost` must run before
 anything initializes the XLA backend, and several submodules build jnp
 constants at import time — eager re-exports here would initialize the
 backend during `from ..parallel.mesh import init_multihost` and make
-jax.distributed.initialize refuse to start (measured by
-benchmarks/rehearse_multihost.py, round 4).
+jax.distributed.initialize refuse to start (seen in
+benchmarks/rehearse_multihost.py).
 """
 
 _EXPORTS = {

@@ -17,7 +17,7 @@ module shards the KEYFRAME axis instead, for large windows:
   accumulated its ROW BLOCK of the reduced system as local (Mloc x Mloc)
   outer products G_i G_j^T — per-round traffic is one G shard
   (Mloc·L·18 floats), overlapping compute with neighbor transfer on the
-  ICI ring exactly like ring attention rotates KV blocks;
+  device ring exactly like ring attention rotates KV blocks;
 - row blocks are all_gathered (small: M^2 6x6) and the pinned (6M, 6M)
   system is solved replicated; landmark back-substitution psums the
   per-shard E^T dc terms.

@@ -4,7 +4,7 @@ The building block for spatially tiled dense flow: each device owns a
 contiguous row block of the frame and needs `halo` rows from each
 neighbor to evaluate windowed operators near its block edges
 (SURVEY.md §5.7a). Implemented with paired lax.ppermute shifts — two
-nearest-neighbor ICI hops, no all-gather.
+nearest-neighbor transfers, no all-gather.
 """
 
 from __future__ import annotations

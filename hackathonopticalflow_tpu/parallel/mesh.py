@@ -9,9 +9,11 @@ mesh axes are:
   within a stream, so time is sequential per stream);
 - 'tile':   spatial row-tiles of one frame (halo-exchange domain);
 
-Intra-slice collectives ride ICI; multi-host extends the same axes over
-DCN via jax.distributed (the mesh is constructed from the global device
-list — XLA owns transport, no NCCL/MPI analog needed).
+The mesh is a plain grid over the device list: on one GPU host every card
+reaches every other over NVLink at the same rate, so the axes follow the
+algorithm alone. Multi-host extends the same axes via jax.distributed (the
+mesh is constructed from the global device list; XLA hands the
+collectives to NCCL).
 """
 
 from __future__ import annotations
@@ -38,12 +40,12 @@ def stream_tile_mesh(n_streams: int, n_tiles: int, devices=None) -> Mesh:
 
 def init_multihost(coordinator: str | None = None, num_processes: int | None = None,
                    process_id: int | None = None) -> None:
-    """Bring up the jax distributed runtime for multi-host pods (DCN).
+    """Bring up the jax distributed runtime for multi-host runs.
 
-    After this, jax.devices() spans the full slice and the same mesh/
-    shard_map code paths run pod-wide — data loading should shard per
-    host (each process decodes its own video subset, BASELINE.json
-    config 5). No-op when already initialized or single-process.
+    After this, jax.devices() spans every host and the same mesh/
+    shard_map code paths run across them — data loading should shard per
+    host (each process decodes its own video subset). No-op when already
+    initialized or single-process.
     """
     import jax
 
@@ -51,7 +53,7 @@ def init_multihost(coordinator: str | None = None, num_processes: int | None = N
         return  # single host
     # must not touch jax.process_count()/devices() here: any backend
     # query initializes XLA and jax.distributed.initialize then refuses
-    # to run (measured by benchmarks/rehearse_multihost.py round 4) —
+    # to run (benchmarks/rehearse_multihost.py) —
     # probe the distributed client state directly instead. The probe
     # touches a private jax internal, so guard it: if the attribute path
     # moves in a future jax, fall through to initialize and catch its

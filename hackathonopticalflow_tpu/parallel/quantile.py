@@ -5,7 +5,7 @@ The reference's vector filter takes a full-frame median / 99th percentile
 reductions (SURVEY.md §5.8). Two strategies:
 
 - exact: all_gather the per-tile magnitude vectors (the grid at step 30 on
-  1080p is only ~2.3k floats — one cheap ICI hop) and reduce locally;
+  1080p is only ~2.3k floats — one cheap transfer) and reduce locally;
 - histogram: psum a fixed-width histogram and invert its CDF — O(bins)
   communication independent of N, for dense per-pixel statistics.
 

@@ -25,8 +25,8 @@ from .draw import circle, line, polylines, rectangle
 
 def _host(x) -> np.ndarray:
     """Device array -> contiguous WRITABLE host array. np.asarray of a jax
-    array is a read-only view on CPU and non-contiguous (planar strides)
-    on TPU; cv2 needs a writable C-order buffer either way. NB np.array's
+    array is a read-only view on CPU and may be non-contiguous (device
+    layouts can leak through); cv2 needs a writable C-order buffer either way. NB np.array's
     default order='K' PRESERVES the planar layout — the copy must force
     C order explicitly (measured on cv2 5.0: circle() rejects the
     channel-last-strided copy)."""

@@ -131,65 +131,6 @@ def test_farneback_packed_mode_within_budget(frame_pair_small):
     assert np.percentile(epe, 99) < 0.2
 
 
-def test_warp_pallas_matches_gather_warp():
-    """The tiled-slab Pallas warp (ops/warp_pallas.py, interpreter mode on
-    CPU) must match the exact gather warp for smooth in-margin flow."""
-    from hackathonopticalflow_tpu.ops.warp import bilinear_sample
-    from hackathonopticalflow_tpu.ops.warp_pallas import warp_bilinear_pallas
-
-    rng = np.random.RandomState(0)
-    h, w, c = 48, 192, 3
-    src = rng.randn(c, h, w).astype(np.float32) * 10
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    fx = xx + 3.0 * np.sin(yy / 17.0) + 2.5 * np.cos(xx / 29.0) - 4.0
-    fy = yy + 2.0 * np.cos(xx / 23.0) - 1.7 * np.sin(yy / 13.0)
-    out = np.asarray(
-        warp_bilinear_pallas(jnp.asarray(src), jnp.asarray(fx), jnp.asarray(fy))
-    )
-    ref = np.stack(
-        [
-            np.asarray(
-                bilinear_sample(jnp.asarray(src[k]), jnp.asarray(fx), jnp.asarray(fy))
-            )
-            for k in range(c)
-        ]
-    )
-    inside = (np.floor(fx) >= 0) & (np.floor(fx) < w - 1)
-    inside &= (np.floor(fy) >= 0) & (np.floor(fy) < h - 1)
-    assert np.abs(out - ref)[:, inside].max() < 1e-4
-
-    # bf16 slabs: same kernel at half the DMA; error bounded by the
-    # source's bf16 rounding (~0.4% rel)
-    out16 = np.asarray(
-        warp_bilinear_pallas(
-            jnp.asarray(src),
-            jnp.asarray(fx),
-            jnp.asarray(fy),
-            slab_dtype=jnp.bfloat16,
-        )
-    )
-    scale = np.abs(src).max()
-    assert np.abs(out16 - ref)[:, inside].max() < 0.01 * scale
-
-
-@requires_cv2
-def test_farneback_pallas_mode_within_budget(frame_pair_small):
-    """warp_mode='pallas' (tiled slab kernel, no gathers) must stay far
-    inside the 0.5 px budget vs cv2 on real corpus frames."""
-    a, b = frame_pair_small
-    ref = cv2.calcOpticalFlowFarneback(a, b, None, 0.5, 3, 15, 3, 5, 1.2, 0)
-    ours = np.asarray(
-        farneback(
-            jnp.asarray(a, jnp.float32),
-            jnp.asarray(b, jnp.float32),
-            FarnebackParams(warp_mode="pallas"),
-        )
-    )
-    epe = np.linalg.norm(ours - ref, axis=-1)
-    assert epe.mean() < 0.02
-    assert np.percentile(epe, 99) < 0.2
-
-
 @requires_cv2
 def test_farneback_gaussian_flag(frame_pair_small):
     """OPTFLOW_FARNEBACK_GAUSSIAN -> FarnebackParams.gaussian_win=True

@@ -1,5 +1,5 @@
-"""LK fast paths (slab+select, Pallas kernel in interpreter mode) must
-match the exact OpenCV-parity path."""
+"""The LK slab path and the whole-clip scan must match the exact
+OpenCV-parity path."""
 
 import numpy as np
 import pytest
@@ -10,24 +10,10 @@ from hackathonopticalflow_tpu.core.config import LKParams
 from hackathonopticalflow_tpu.core.grid import measurement_grid
 from hackathonopticalflow_tpu.ops.lk import pyr_lk
 
-from conftest import requires_cv2, HAVE_CV2
-
-if HAVE_CV2:
-    import cv2
-
 
 @pytest.fixture(scope="module")
-def pair_and_pts(request):
-    from hackathonopticalflow_tpu.io.video import read_gray_pair
-
-    import os
-
-    path = "/root/reference/videos/здания_дверь_колонны_перекрытия.mp4"
-    if not HAVE_CV2 or not os.path.exists(path):
-        pytest.skip("corpus missing")
-    a, b = read_gray_pair(path, 100)
-    a = cv2.resize(a, (480, 270), interpolation=cv2.INTER_AREA)
-    b = cv2.resize(b, (480, 270), interpolation=cv2.INTER_AREA)
+def pair_and_pts(frame_pair_small):
+    a, b = frame_pair_small
     return a, b, measurement_grid(270, 480, 30)
 
 
@@ -44,14 +30,6 @@ def _epe_vs_exact(a, b, pts, params):
 def test_slab_path_matches_exact(pair_and_pts):
     a, b, pts = pair_and_pts
     d, agree = _epe_vs_exact(a, b, pts, LKParams(slab_margin=16))
-    assert agree > 0.99
-    assert d.mean() < 1e-3
-    assert d.max() < 0.05
-
-
-def test_pallas_path_matches_exact(pair_and_pts):
-    a, b, pts = pair_and_pts
-    d, agree = _epe_vs_exact(a, b, pts, LKParams(use_pallas=True, slab_margin=16))
     assert agree > 0.99
     assert d.mean() < 1e-3
     assert d.max() < 0.05

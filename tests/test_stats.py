@@ -3,7 +3,7 @@ test_image_ops.py."""
 
 import numpy as np
 def test_kmeans_recovers_clusters():
-    """ops/stats.kmeans (TPU-native Lloyd; reference's cv2.kmeans analog,
+    """ops/stats.kmeans (jittable Lloyd; reference's cv2.kmeans analog,
     DenseOF.py:326-345) separates well-separated clusters exactly."""
     import jax
     import jax.numpy as jnp
